@@ -1,6 +1,9 @@
-"""End-to-end overlap throughput benchmark (single chip).
+"""End-to-end overlap throughput benchmark (one GPU).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "device", "detail"};
+"device" names the card (JAX's platform, device_kind and device count,
+nvidia-smi's name and power limit).  Exits non-zero without a result
+when JAX finds no GPU.
 
 Primary workload: self-overlap of 1024 synthetic noisy long reads
 (PacBio-like error profile, ~11%) tiling a random genome, MHAP default
@@ -9,17 +12,14 @@ settings (k=16, 512 min-hashes, 1536-entry ordered sketch, threshold
 (reference main/MhapMain.java defaults).
 
 value        = reads overlapped per second, end-to-end (sketch + LSH vote +
-               second-stage scoring + formatting), steady-state (2nd run;
-               the 1st run pays XLA compiles).
-vs_baseline  = value / baseline reads/s from bench_baseline.json.  The
-               baseline is native/mhap_cpu.cc: a multithreaded C++ port of
-               the reference pipeline on all host cores, at the SAME
-               problem size (no JVM exists in the image; the C++ port is
-               parity-tested against the oracle and the device pipeline).
+               second-stage scoring + formatting), steady-state (median
+               of 3 runs after 2 settling runs; the 1st run pays XLA
+               compiles, reported as warm_s).
 
 The default run measures ONLY the primary workload and prints the JSON
-line as soon as it is known (round-2 lesson: extra configs ran by default
-and blew the driver's time budget -- BENCH_r02 recorded nothing).
+line as soon as it is known.  The native reference port
+(native/mhap_cpu.cc, a multithreaded C++ port of the reference pipeline)
+is the correctness anchor of every config (``--verify-native``).
 
 Additional named configs (BASELINE.md config shapes) are opt-in:
   lognormal10k -- 10,000 reads, ONT-like lognormal length distribution,
@@ -52,8 +52,6 @@ GENOME_LEN = 480_000
 SEED = 4242
 ERR = 0.11
 
-_BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                              "bench_baseline.json")
 
 
 def _noisy_read(rng, raw, out_len):
@@ -154,13 +152,17 @@ def write_truth_m4(placements, reads, path, genome_len):
                     f"0 {s} {e} {genome_len}\n")
 
 
-# pinned expected overlap counts (silent-drift guards, VERDICT r3 item 5)
-# lognormal10k: the native C++ reference port on the same reads
-#   (native/build/mhap_cpu, re-derivable with --verify-native)
+# pinned expected overlap counts (silent-drift guards)
+# primary and lognormal10k: the native C++ reference port on the same
+#   reads (native/build/mhap_cpu, re-derivable with --verify-native)
 # filtered2k: the CPU-backend run of the same pipeline (independent
 #   backend; the filter path is oracle-parity-tested at small sizes)
+# scale40k: the native port on the same reads (chip_smoke.py checks the
+#   line-set sha256 against it)
+EXPECTED_PRIMARY = 4349
 EXPECTED_LOGNORMAL10K = 158246
 EXPECTED_FILTERED2K = 286410
+EXPECTED_SCALE40K = 632392
 
 
 def bench_config_lognormal(n_reads=10_000, verify_native=False):
@@ -191,7 +193,7 @@ def bench_config_lognormal(n_reads=10_000, verify_native=False):
             for i, r in enumerate(reads):
                 f.write(f">{i + 1}\n{r}\n")
         # do_dp + batch_dp: disputed PPV pairs adjudicated by the batched
-        # on-device Smith-Waterman kernel (ops/swalign.py), the TPU-native
+        # on-device Smith-Waterman kernel (ops/swalign.py), the device
         # form of the reference's ssw JNI path (EstimateROC.java:294-313).
         roc = EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True)
         roc.process_reference(truth)
@@ -217,7 +219,7 @@ def bench_config_lognormal(n_reads=10_000, verify_native=False):
             out["native_overlaps"] = n_native
             out["lineset_sha256_match"] = nat_sha == lineset_sha256(lines)
             # native line set through the SAME EstimateROC = the anchor
-            # for the README ROC columns (VERDICT r3 item 5); the lines
+            # for the ROC columns; the lines
             # captured above are reused -- re-running the multi-minute
             # native binary a second time bought nothing
             nroc = EstimateROC(min_ovl_len=500, num_trials=2000,
@@ -238,6 +240,18 @@ def bench_config_lognormal(n_reads=10_000, verify_native=False):
     return out
 
 
+def filtered_reads(n_reads, filter_path):
+    """The filtered2k recipe: reads over a repeat-seeded genome plus its
+    k-mer frequency file written to ``filter_path``.  Returns (reads,
+    number of filter rows)."""
+    genome_len = int(n_reads * READ_LEN / 25.0)
+    genome = repeat_seeded_genome(genome_len, seed=SEED + 2)
+    reads, _, _ = make_reads_placed(n_reads, seed=SEED + 2,
+                                    lognormal=False, genome=genome,
+                                    genome_len=genome_len)
+    return reads, write_filter_file(genome, 16, filter_path)
+
+
 def bench_config_filtered(n_reads=2048):
     """tf-idf filter-file config (FrequencyCounts weighting path)."""
     import tempfile
@@ -247,14 +261,9 @@ def bench_config_filtered(n_reads=2048):
     from mhap_tpu.pipeline.freqfilter import VectorFrequencyFilter
     from mhap_tpu.pipeline.overlapper import TpuOverlapper
 
-    genome_len = int(n_reads * READ_LEN / 25.0)
-    genome = repeat_seeded_genome(genome_len, seed=SEED + 2)
-    reads, _, _ = make_reads_placed(n_reads, seed=SEED + 2,
-                                    lognormal=False, genome=genome,
-                                    genome_len=genome_len)
     with tempfile.TemporaryDirectory() as td:
         fpath = os.path.join(td, "kmers.txt")
-        n_rows = write_filter_file(genome, 16, fpath)
+        reads, n_rows = filtered_reads(n_reads, fpath)
         with open_text(fpath) as f:
             fc = FrequencyCounts(f, 1e-5, 0.9, 0, False, 3.0, True)
     vf = VectorFrequencyFilter(fc)
@@ -300,8 +309,8 @@ def bench_config_scale40k(n_reads=40_000, verify_native=False):
     warm = time.perf_counter() - t0
     _prog(f"scale40k: warm {warm:.0f}s, {len(lines)} overlaps")
     # two settling runs (compile stragglers), then steady = MEDIAN of 3
-    # timed runs with the full spread recorded (VERDICT r3 item 2:
-    # steady must be an honest central estimate, not a best case)
+    # timed runs with the full spread recorded (steady must be an honest
+    # central estimate, not a best case)
     settle = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -333,7 +342,7 @@ def bench_config_scale40k(n_reads=40_000, verify_native=False):
 
 
 def bench_config_repeat40k(n_reads=40_000, verify_native=False):
-    """Adversarial reference-scale config (VERDICT r3 item 9): a
+    """Adversarial reference-scale config: a
     repeat-dominated genome (~24% of the genome is copies of one 2kb
     repeat family) at 40k reads with the tf-idf filter file active --
     the reference's worst case (sketch/FrequencyCounts.java weighting +
@@ -481,69 +490,65 @@ def lineset_sha256(lines):
         "\n".join(sorted(lines)).encode("utf-8")).hexdigest()
 
 
+def write_fasta(reads, path):
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f">r{i}\n{r}\n")
+
+
+def native_lines(fasta_path, threads=None, extra=()):
+    """M4 lines of the native reference port (native/build/mhap_cpu, built
+    from the committed sources) on a FASTA file: ``mhap_cpu -s FASTA``."""
+    import subprocess
+
+    from mhap_tpu.utils.native import CPU_BINARY, build
+
+    build()
+    out = subprocess.run(
+        [CPU_BINARY, "-s", fasta_path, "--num-threads",
+         str(threads or os.cpu_count()), *extra],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()
+
+
 def bench_native(reads, threads=None, extra=(), return_lines=False,
                  trials=1):
     """Time the native multithreaded CPU pipeline (the Java-reference
     stand-in: same algorithm + data structures as the reference, compiled,
     all host cores; parity-tested in tests/test_native_cpu.py).
 
-    ``trials`` > 1 reports the MEDIAN wall time (native run-to-run
-    spread measured ~60-92s at 40k; a single lucky run would overstate
-    the device ratio -- the same honesty rule the device side follows).
+    ``trials`` > 1 reports the MEDIAN wall time.
     Returns (reads/s, #lines, threads, lineset_sha256[, trial times]
     [, lines])."""
-    import subprocess
     import tempfile
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    binary = os.path.join(repo, "native", "build", "mhap_cpu")
-    if not os.path.exists(binary):
-        subprocess.run(["make", "-C", os.path.join(repo, "native")],
-                       check=True, capture_output=True)
     threads = threads or os.cpu_count()
     with tempfile.NamedTemporaryFile("w", suffix=".fa", delete=False) as f:
-        for i, r in enumerate(reads):
-            f.write(f">r{i}\n{r}\n")
         path = f.name
+    write_fasta(reads, path)
     try:
         times = []
         for t in range(trials):
             _prog(f"native: {len(reads)} reads on {threads} threads "
                   f"{list(extra)} trial {t + 1}/{trials}")
             t0 = time.perf_counter()
-            out = subprocess.run(
-                [binary, "-s", path, "--num-threads", str(threads),
-                 *extra],
-                capture_output=True, text=True, check=True)
+            lines = native_lines(path, threads, extra)
             times.append(time.perf_counter() - t0)
             _prog(f"native: done in {times[-1]:.0f}s")
         dt = sorted(times)[len(times) // 2]
     finally:
         os.unlink(path)
-    lines = out.stdout.strip().splitlines()
     ret = (len(reads) / dt, len(lines), threads, lineset_sha256(lines),
            [round(t, 1) for t in times])
     return ret + (lines,) if return_lines else ret
 
 
 def main():
-    if "--make-baseline" in sys.argv:
-        # the baseline is the native CPU pipeline at the SAME problem size
-        # as the device run (reads/s is not size-invariant: candidate work
-        # grows with coverage)
-        reads = make_reads()
-        rps, n_lines, threads, nat_sha, _times = bench_native(reads)
-        data = {"native_reads_per_s": rps, "n_reads": len(reads),
-                "read_len": READ_LEN, "seed": SEED, "overlaps": n_lines,
-                "threads": threads, "lineset_sha256": nat_sha,
-                "note": "native/mhap_cpu.cc: multithreaded C++ port of the "
-                        "reference pipeline on all host cores (no JVM in "
-                        "image; same algorithm + data structures as the "
-                        "Java, parity-tested vs oracle + device)"}
-        with open(_BASELINE_PATH, "w") as f:
-            json.dump(data, f, indent=1)
-        print(json.dumps(data))
-        return
+    from mhap_tpu.utils.compile_cache import enable_compile_cache
+    from mhap_tpu.utils.device import gpu_device_info
+
+    device = gpu_device_info()
+    enable_compile_cache()
 
     if "--config" in sys.argv:
         name = sys.argv[sys.argv.index("--config") + 1]
@@ -556,37 +561,27 @@ def main():
               if name in ("scale40k", "lognormal10k", "scale100k",
                           "repeat40k")
               and "--verify-native" in sys.argv else {})
-        print(json.dumps({name: fn(**kw)}))
+        print(json.dumps({name: fn(**kw), "device": device}))
         return
 
     # PRIMARY workload only; the JSON line prints the moment it is known.
     reads = make_reads()
     rps, n_overlaps, warm, steady = bench_device(reads)
-    base, base_overlaps = None, None
-    if os.path.exists(_BASELINE_PATH):
-        with open(_BASELINE_PATH) as f:
-            b = json.load(f)
-        base = b.get("native_reads_per_s")
-        base_overlaps = b.get("overlaps")
-    vs = rps / base if base else None
     print(json.dumps({
         "metric": "reads_overlapped_per_s_per_chip",
         "value": round(rps, 3),
         "unit": "reads/s",
-        "vs_baseline": round(vs, 3) if vs is not None else None,
+        "device": device,
         "detail": {"n_reads": len(reads), "read_len": READ_LEN,
                    "overlaps": n_overlaps,
-                   "overlaps_expected": base_overlaps,
-                   "overlaps_match": (n_overlaps == base_overlaps
-                                      if base_overlaps else None),
+                   "overlaps_expected": EXPECTED_PRIMARY,
+                   "overlaps_match": n_overlaps == EXPECTED_PRIMARY,
                    "warm_s": round(warm, 2),
-                   "steady_s": round(steady, 2),
-                   "baseline": "native C++ reference port, all host cores "
-                               "(see bench_baseline.json)"},
+                   "steady_s": round(steady, 2)},
     }), flush=True)
-    if base_overlaps is not None and n_overlaps != base_overlaps:
+    if n_overlaps != EXPECTED_PRIMARY:
         print(f"WARNING: overlap count drift: device={n_overlaps} "
-              f"native baseline={base_overlaps}", file=sys.stderr)
+              f"expected={EXPECTED_PRIMARY}", file=sys.stderr)
 
     if "--all-configs" in sys.argv:
         for name, fn in (("lognormal10k", bench_config_lognormal),

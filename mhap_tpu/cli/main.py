@@ -7,7 +7,7 @@ settings echo / timing spans / final stats (outputFinalStat:572-590),
 and M4 results on stdout.
 
 Extensions over the reference: ``--backend device|sharded|oracle``
-(device = the single-chip TPU pipeline, the default; sharded = the same
+(device = the JAX pipeline on one device, the default; sharded = the same
 pipeline SPMD over every visible device via parallel/sharded.py; oracle
 = the bit-exact numpy reference) and FASTQ input support.
 """
@@ -73,7 +73,7 @@ class ParseOptions:
                 print(self.help_menu())
                 return False
             if a == "--version":
-                print("2.1.3-tpu")
+                print("2.1.3-jax")
                 return False
             if a not in self.options:
                 # support -sfile style concatenation for short flags
@@ -125,7 +125,7 @@ PRESETS = {
 def build_options() -> ParseOptions:
     o = ParseOptions()
     o.add_start_text(
-        "MHAP-TPU: TPU-native MinHash Alignment Protocol. A tool for "
+        "MHAP (JAX): MinHash Alignment Protocol. A tool for "
         "finding overlaps of long-read sequences (such as PacBio or "
         "Nanopore) in bioinformatics.")
     o.add("-s", "Usage 1 only. The FASTA or binary dat file of reads stored"
@@ -161,8 +161,9 @@ def build_options() -> ParseOptions:
     o.add("--no-rc", "Do not use reverse complements.", False)
     o.add("--settings", "Presets for unset flags: 0) none 1) default "
           "2) fast 3) sensitive.", 0)
-    o.add("--backend", "device (TPU pipeline), sharded (all visible "
-          "devices, SPMD over a mesh) or oracle (numpy reference).",
+    o.add("--backend", "device (JAX pipeline on one device), sharded "
+          "(all visible devices, SPMD over a mesh) or oracle (numpy "
+          "reference).",
           "device")
     o.add("--paf", "Emit PAF instead of MHAP M4 output.", False)
     return o
@@ -265,6 +266,11 @@ def main(argv=None) -> int:
 
     print("Running with these settings:", file=sys.stderr)
     print(o, file=sys.stderr)
+
+    if o.get("--backend").value in ("device", "sharded"):
+        from ..utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
 
     cfg = options_to_cfg(o)
     kmer_filter = load_filter(o)

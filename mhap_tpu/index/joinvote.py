@@ -22,10 +22,9 @@ slice often" discipline):
            5-operand unsort program transports 4 channels per dispatch
            back to query-slot order.
   residual run cells with cnt > span contribute their remaining
-           postings EXACTLY through a host-built flat gather (measured
-           cheap: ~35ms for 500k elements) scattered into E extra
-           candidate columns; queries whose residual exceeds E fall back
-           to the exact host vote.
+           postings EXACTLY through a host-built flat gather scattered
+           into E extra candidate columns; queries whose residual
+           exceeds E fall back to the exact host vote.
   stage C  (per fixed-size query chunk): one u32 sort of the candidate
            row counts votes by run length; suppression is a pure
            row-index compare (store rows are header-ordered, so
@@ -320,10 +319,9 @@ class JoinedIndex:
 
     def _with_resid_cols(self, cand, fill: np.ndarray | None):
         """Attach the E_RESID columns (host fill or all-sentinel) by
-        CONCATENATION: a .at[rows].set scatter into the ~0.7GB buffer
-        lowers to a serialized TPU scatter and measured ~13s per slab
-        at 100k reads; the dense [Q, E] upload + concat is ~0.7s on the
-        16MB/s link."""
+        CONCATENATION, not a .at[rows].set scatter into the ~0.7GB buffer
+        (chosen on the earlier target, where that scatter serialized;
+        not yet re-measured on the H100)."""
         if fill is None:
             fill = np.full((self.Q, E_RESID), 0xFFFFFFFF, np.uint32)
         return jnp.concatenate([cand, jnp.asarray(fill)], axis=1)
@@ -375,11 +373,9 @@ class JoinedIndex:
                                         jnp.asarray(flat_slot)))
         tp = _wp(f"gather n={len(flat_b)}", tp)
         # pack per query into E_RESID columns (host-side; tiny), then
-        # REPLACE the sentinel residual block by concatenation: a
-        # .at[rows].set scatter into the ~0.7GB candidate buffer lowers
-        # to a serialized TPU scatter and measured ~13s per slab at 100k
-        # reads; the dense host fill + one [Q, E] upload + concat is
-        # ~0.7s on the 16MB/s link
+        # REPLACE the sentinel residual block by concatenation, not a
+        # .at[rows].set scatter into the ~0.7GB candidate buffer (see
+        # _with_resid_cols)
         order = np.argsort(flat_q, kind="stable")
         fq, fs = flat_q[order], sids[order]
         uq, qstart, qcnt = np.unique(fq, return_index=True,
@@ -547,13 +543,12 @@ def candidate_member_mask(store_mh, q_vals_sorted):
     restricting the dense vote's candidate axis to mask rows is EXACT --
     the repeat regime's fallback queries are family reads whose
     candidates live almost entirely inside the repeat family, a ~2-3x
-    smaller axis (NOTES.md gap analysis).
+    smaller axis.
 
     q_vals_sorted [B, H]: fallback queries' sketch values, sorted per
     band column (pad by REPEATING a real query row -- duplicates cannot
     change set membership).  Cost: log2(B) binary-search passes over the
-    [N, H] sketch matrix, ~0.3s at repeat40k vs the ~2x saved on the
-    ~350s dense vote."""
+    [N, H] sketch matrix."""
     B = q_vals_sorted.shape[0]
 
     def per_band(qcol, scol):

@@ -1,6 +1,6 @@
 """Device-side LSH index: sorted postings + searchsorted vote kernel.
 
-The TPU-native re-expression of MinHashSearch's 512 per-position hash
+The device re-expression of MinHashSearch's 512 per-position hash
 tables (impl/MinHashSearch.java:85-147): for each sketch position the
 (value -> [sequence ids]) map becomes a value-sorted row of a dense
 [H, N] postings matrix; a query looks its value up with vectorized
@@ -44,8 +44,9 @@ _CHANNEL_SPAN_MAX = 32  # spans above this use the request sort-join
 def _expand_spans_sortjoin(post_sids, left, cnt, span_cap: int, N: int,
                            Q: int, H: int):
     """Span expansion for LARGE span_cap: candidate ids [Q, H, span_cap]
-    via a request sort-join.  NOT a gather: computed-index gathers run
-    ~3x slower than sorts on TPU.  Each (q, band, d) request wants
+    via a request sort-join, not a gather (chosen on the earlier target,
+    where computed-index gathers ran slower than sorts; not yet
+    re-measured on the H100).  Each (q, band, d) request wants
     posting slot left+d; jointly sorting postings (tag 0, their own
     slot) with requests (tag 1, wanted slot) per band lets a doubling
     fill propagate each posting's sid to the requests behind it, and a
@@ -93,8 +94,8 @@ def expand_hits(post_vals, post_sids, query_mh, *, span_cap: int):
     overflow [Q], hits_total [Q]).  Factored out so the sharded SPMD
     path (parallel/sharded.py) can run the same sort-join/channel
     expansion per band shard instead of vmapped binary searches +
-    computed gathers (which measure ~an order of magnitude slower on
-    TPU) and route the expanded hits with one all_to_all."""
+    computed gathers, and route the expanded hits with one
+    all_to_all."""
     return _expand_core(post_vals, post_sids, query_mh,
                         span_cap=span_cap)
 
@@ -105,11 +106,11 @@ def _expand_core(post_vals, post_sids, query_mh, *, span_cap: int):
 
     # per (q, pos): locate the value span in the position's posting row.
     # Vectorized binary search (searchsorted) is a computed-index gather
-    # loop -- very slow on TPU.  Instead, a per-band SORT-JOIN: jointly
-    # sort postings (tag 0) and queries (tag 1) per band, then ranks fall
-    # out of cumulative sums and a run-start cummax, and (left, cnt) ride
-    # back to query-slot order on a second sort.  Two [H, N+Q] sorts
-    # replace Q*H binary searches.
+    # loop (slow on the earlier target).  Instead, a per-band SORT-JOIN:
+    # jointly sort postings (tag 0) and queries (tag 1) per band, then
+    # ranks fall out of cumulative sums and a run-start cummax, and
+    # (left, cnt) ride back to query-slot order on a second sort.  Two
+    # [H, N+Q] sorts replace Q*H binary searches.
     M = N + Q
     j_vals = jnp.concatenate([post_vals, query_mh.T], axis=1)   # [H, M]
     j_tag = jnp.concatenate(
@@ -132,9 +133,9 @@ def _expand_core(post_vals, post_sids, query_mh, *, span_cap: int):
         jnp.where(new_run, pos_j - (cum_q - s_tag), 0), axis=1)
 
     # the channel path packs candidate ids and ranks into u32 halves
-    # (sort compile time explodes with operand count on this backend:
-    # 2key+18pay ~110s vs 1key+9pay ~35s at equal runtime), so it
-    # requires N and M to fit 16 bits; wider stores use the sort-join.
+    # (sort compile time grew steeply with operand count on the earlier
+    # target; not yet re-measured on the H100), so it requires N and M
+    # to fit 16 bits; wider stores use the sort-join.
     use_channels = (span_cap <= _CHANNEL_SPAN_MAX and N < 0xFFFF
                     and M <= 0xFFFF)
     packed_ch = []
@@ -222,8 +223,8 @@ def count_votes(cand_flat, N: int, *, top_k: int, min_matches: int):
     # index of each run start and the following run start)
     run_start_idx = jnp.where(new_run, pos[None, :], M)
     # next run start for each element: a suffix-min, i.e. a reversed
-    # cummin (the old log2(M)-step doubling loop cost ~14ms at the bench
-    # shape; one native cummin + two reversals is ~1ms)
+    # cummin: one native cummin + two reversals replaces a log2(M)-step
+    # doubling loop
     nxt = jnp.concatenate(
         [run_start_idx[:, 1:], jnp.full((Q, 1), M, I32)], axis=1)
     nxt = jax.lax.cummin(nxt[:, ::-1], axis=1)[:, ::-1]

@@ -10,7 +10,7 @@
    SequenceSketchStreamer.writeToBinary:322-395 / readFromBinary:278-320;
    payload: SequenceSketch.getAsByteArray:123-148.
 
-2. Native columnar ``.npz`` sharded store (TPU-side fast path): dense
+2. Native columnar ``.npz`` sharded store (device-side fast path): dense
    arrays, one file per shard, zero parse cost on load.
 """
 

@@ -4,7 +4,7 @@ Parity target: sketch/BottomOverlapSketch.java:525-559 -- murmur3_32 every
 k-mer (non-canonical), stable radix sort by signed hash, keep the bottom
 min(sketch_size, n) entries as (hash, position) pairs.
 
-TPU formulation: one ``lax.sort`` over the padded [B, n] hash matrix with
+Device formulation: one ``lax.sort`` over the padded [B, n] hash matrix with
 (validity, hash, position) keys; the bottom ``sketch_size`` slice is the
 sketch.  Entries past a read's true k-mer count are masked with
 hash = INT32_MAX sentinels and an explicit count so downstream kernels can

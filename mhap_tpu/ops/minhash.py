@@ -1,4 +1,4 @@
-"""Stage-1 weighted MinHash sketch kernel (JAX, TPU-native formulation).
+"""Stage-1 weighted MinHash sketch kernel (JAX, dense batched formulation).
 
 Parity target: sketch/MinHashSketch.java:51-179.
 
@@ -119,7 +119,7 @@ def weighted_min_reduce(hi, lo, weight, active, tiebreak, *,
     act_u = active
     w = jnp.where(active, weight, 0)
     # keep the unrolled graph bounded: ~32 advances per scan step (compile
-    # time scales with the step body; remote compile makes this expensive)
+    # time scales with the step body)
     unroll = min(unroll, max(1, 32 // max(w_max, 1)))
     while num_hashes % unroll:
         unroll //= 2

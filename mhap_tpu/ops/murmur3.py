@@ -1,4 +1,4 @@
-"""Batched murmur3 k-mer hashing for TPU (JAX/XLA, uint32 arithmetic only).
+"""Batched murmur3 k-mer hashing on device (JAX/XLA, uint32 arithmetic only).
 
 Computes the same values as guava's murmur3 over the UTF-16 chars of Java
 k-mer substrings (reference sketch/HashUtils.java:237-258 / :213-235):

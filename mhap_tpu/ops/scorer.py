@@ -6,7 +6,7 @@ valid-match count, UMVU edges); the float mash-identity conversion happens
 on the host in float64 so there is zero float-parity risk in the kernel
 (see pipeline/overlapper.py).
 
-TPU-native structure:
+Device structure:
 
 * a *shared-hash prefilter* removes entries whose hash does not occur in the
   other sketch.  This is exactly behavior-preserving: matches happen only on
@@ -470,14 +470,8 @@ def seg_suffix_scan(leaves: dict, run_last: jnp.ndarray,
 
 
 def _sorted_pair_structure_sort(a_h, a_p, a_m, b_h, b_p, b_m):
-    """Master structure via one full 4-key lax.sort.
-
-    The default on TPU: XLA's TPU sort at these widths runs ~0.1ms per
-    512-lane batch, while the bitonic merge's interleave steps
-    (stack+reshape at distances below the lane width) relayout every
-    stage and measure ~500x slower on a v5e.  The CPU backend is the
-    mirror image (merge 5-7x faster than sort) -- see
-    _sorted_pair_structure for the dispatch."""
+    """Master structure via one full 2-limb lax.sort (the GPU choice;
+    see _sorted_pair_structure for the dispatch)."""
     S = a_h.shape[0]
     slot = jnp.arange(S, dtype=I32)
     is_pad = jnp.concatenate([slot >= a_m, slot >= b_m])
@@ -518,8 +512,7 @@ def _sorted_pair_structure_merge(a_h, a_p, a_m, b_h, b_p, b_m):
     concat(A, reverse(B)) is bitonic under the packed key and log2(2S)
     compare-exchange stages replace the full 4-key sort network.
     5-7x faster than lax.sort on the CPU backend (tests, virtual-mesh
-    scale runs); cataclysmically slower on TPU, where the sort network
-    wins -- see _sorted_pair_structure_sort.
+    scale runs) -- see _sorted_pair_structure for the dispatch.
 
     Packed 2-limb key per entry:
       limb0 = hash ^ 0x80000000   (signed order as unsigned)
@@ -571,10 +564,12 @@ def _sorted_pair_structure_merge(a_h, a_p, a_m, b_h, b_p, b_m):
 
 def _sorted_pair_structure(a_h, a_p, a_m, b_h, b_p, b_m):
     """Backend dispatch for the master structure (trace-time choice; both
-    formulations are differentially tested bit-identical)."""
-    if jax.default_backend() == "cpu":
-        return _sorted_pair_structure_merge(a_h, a_p, a_m, b_h, b_p, b_m)
-    return _sorted_pair_structure_sort(a_h, a_p, a_m, b_h, b_p, b_m)
+    formulations are differentially tested bit-identical).  The GPU takes
+    the formulation measured faster on the H100 at S=1536 over a
+    32768-lane slice; every other backend takes the merge."""
+    if jax.default_backend() == "gpu":
+        return _sorted_pair_structure_sort(a_h, a_p, a_m, b_h, b_p, b_m)
+    return _sorted_pair_structure_merge(a_h, a_p, a_m, b_h, b_p, b_m)
 
 
 def _replay_runs(st, okv, amb, median, abs_max, A: int, RB: int):
@@ -869,10 +864,10 @@ def _fast_pass_scan(st, median, abs_max, v1l, v1u, v2l, v2u,
     # widths): flagged lanes re-run exactly on the host
     needs_slow = needs_slow | (cnt > cap)
 
-    # compact records to [cap] BY SORT, not scatter: computed-index
-    # scatters dominate the scorer on TPU (~10x the cost of a lax.sort of
-    # the same width).  Each run representative carries its first-pair
-    # record (key `base`) and parks the last-pair record on the NEXT
+    # compact records to [cap] BY SORT, not scatter (chosen on the
+    # earlier target, where computed-index scatters serialized; not yet
+    # re-measured on the H100).  Each run representative carries its
+    # first-pair record (key `base`) and parks the last-pair record on the NEXT
     # element (key `base + 1`; rep+1 is inside the run whenever rec_last
     # -- see the shifts-only branch), keeping the sort [n2] wide instead
     # of [2*n2].  Replayed runs carry up to RB records keyed base + slot.
@@ -943,9 +938,10 @@ def make_score_pairs_fast(max_shift_percent: float, sketch_size: int,
     other lanes are exact.
 
     scan_bound: the segmented scans run log2(scan_bound) doubling steps
-    instead of log2(2S) -- the scorer's dominant cost (the scans, not the
-    master sort, bound the stage on TPU).  Lanes containing any hash run
-    longer than scan_bound elements are detected exactly (equal hashes at
+    instead of log2(2S) -- the scans were the scorer's dominant cost on
+    the earlier target (not yet re-measured on the H100).  Lanes
+    containing any hash run longer than scan_bound elements are detected
+    exactly (equal hashes at
     distance scan_bound in the sorted structure) and flagged needs_slow.
     Real-data runs are c1+c2 duplicate 12-mers of one hash value within
     two 1536-entry sketches -- measured <= 4 on 100% of bench pairs -- so
@@ -953,8 +949,8 @@ def make_score_pairs_fast(max_shift_percent: float, sketch_size: int,
 
     shared_cap: the merge passes run on a [shared_cap]-wide compaction of
     the shared runs (_compact_shared_runs -- sort-based, NOT the gather
-    formulation NOTES.md records as a dead end).  Shared entries are
-    <10%% of 2S at PacBio-like error rates; lanes whose shared count
+    formulation, a dead end on the earlier target).  Shared entries
+    are <10%% of 2S at PacBio-like error rates; lanes whose shared count
     exceeds the cap flag needs_slow.  None (or >= 2S) disables.
     """
     m_c, s_c = fixed_point_constant(max_shift_percent)

@@ -1,7 +1,7 @@
 """Batched affine-gap local Smith-Waterman on device (anti-diagonal
 wavefront).
 
-The TPU-native counterpart of the reference's single native component,
+The device counterpart of the reference's single native component,
 the SSW striped Smith-Waterman JNI library used by EstimateROC's PPV
 adjudication (main/EstimateROC.java:294-313, :789; our host-side exact
 rebuild is native/sw.cc).  This kernel scores a BATCH of pairs at once:

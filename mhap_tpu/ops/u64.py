@@ -1,9 +1,11 @@
-"""64-bit integer arithmetic as (hi, lo) uint32 pairs for TPU.
+"""64-bit integer arithmetic as (hi, lo) uint32 pairs.
 
-TPUs have no native 64-bit integer path; everything 64-bit on the overlap
-pipeline (murmur3_128, the xorshift min-reduce stream, signed 64-bit
-comparisons) is expressed over uint32 pairs so the kernels run on the VPU
-without enabling jax_enable_x64.
+Everything 64-bit on the overlap pipeline (murmur3_128, the xorshift
+min-reduce stream, signed 64-bit comparisons) is expressed over uint32
+pairs, so the kernels run without enabling jax_enable_x64.  The form was
+chosen for the earlier target, which had no native 64-bit integer path;
+on the GPU it is kept for parity until a native uint64 version is
+measured against it.
 
 Representation: a U64 is a tuple (hi, lo) of same-shaped jnp.uint32 arrays.
 All ops are elementwise and XLA-fusable.

@@ -14,7 +14,7 @@ Two variants are used on the overlap path:
   ordered-sketch k-mer hashes.
 
 This module is the *parity oracle*: a slow-but-clear vectorized NumPy
-implementation that the TPU kernels (mhap_tpu/ops/murmur3.py) are tested
+implementation that the device kernels (mhap_tpu/ops/murmur3.py) are tested
 against bit-for-bit.  It is validated against a canonical C implementation
 (native/murmur3.c) and sklearn's murmurhash3_32.
 

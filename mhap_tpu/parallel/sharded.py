@@ -454,9 +454,8 @@ class ShardedOverlapper(TpuOverlapper):
                         q_in, (0, d * Hl), (QC, Hl))
 
                 # same sort-join/channel expansion as the single-chip
-                # kernel (index/postings.expand_hits): vmapped binary
-                # searches + computed gathers measured ~an order of
-                # magnitude slower on this hardware
+                # kernel (index/postings.expand_hits) instead of vmapped
+                # binary searches + computed gathers
                 from ..index.postings import expand_hits
 
                 cand, over_part, hits_part = expand_hits(
@@ -514,12 +513,10 @@ class ShardedOverlapper(TpuOverlapper):
                                        self._put_rep(cc_p)))[:, :e - s]
             outs.append(packed)
         packed = np.concatenate(outs, axis=1) if len(outs) > 1 else outs[0]
-        out = {n: packed[i] for i, n in enumerate(names)}
         # no in-program exact rescore here (the multi-process path keeps
         # the host-oracle fallback); every flagged lane is both counted
         # and re-scored by the caller
-        out["slow_flag"] = out["needs_slow"]
-        return out
+        return {n: packed[i] for i, n in enumerate(names)}
 
     def _score_stage(self, Nq, Nc, Pc, same):
         key = ("score", Nq, Nc, Pc, same)

@@ -339,7 +339,7 @@ class EstimateROC:
     def estimate_ppv(self, batch_dp: bool = False) -> None:
         """PPV sampling.  batch_dp=True defers disputed pairs and
         adjudicates them with the batched on-device Smith-Waterman kernel
-        (ops/swalign.py) instead of per-pair host calls -- the TPU-native
+        (ops/swalign.py) instead of per-pair host calls -- the device
         form of the reference's parallel-stream JNI alignment
         (EstimateROC.java:746-800)."""
         num_tp = 0

@@ -1,18 +1,21 @@
 """ctypes bindings for the native helper library (native/libmhapnative.so).
 
-Builds on demand via ``make`` if the shared object is missing (the toolchain
-is assumed present; there is no pip dependency).  Exposes:
+Runs ``make`` on first use in each process, so the library is always built
+from the committed sources (``make`` does nothing when the build is
+current; the toolchain is assumed present, there is no pip dependency).
+Exposes:
 
 * canonical MurmurHash3 (cross-check oracle for the JAX kernels)
 * batched k-mer hashing on the host (golden generation)
 * local Smith-Waterman with identity stats (EstimateROC adjudication; the
-  TPU-native replacement for the reference's libsswjni.so JNI library,
+  replacement for the reference's libsswjni.so JNI library,
   reference main/EstimateROC.java:294-313)
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from functools import lru_cache
@@ -20,13 +23,24 @@ from functools import lru_cache
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libmhapnative.so")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libmhapnative.so")
+CPU_BINARY = os.path.join(_BUILD_DIR, "mhap_cpu")
+
+
+def build() -> None:
+    """``make -C native`` under an exclusive file lock: concurrent test
+    workers must not rebuild (and load) the same objects at once."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True)
 
 
 @lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True, capture_output=True)
+    build()
     lib = ctypes.CDLL(_LIB_PATH)
     lib.murmur3_x64_128.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p]
     lib.murmur3_x64_128.restype = None
@@ -45,7 +59,32 @@ def _lib() -> ctypes.CDLL:
     lib.mhap_format_m4.argtypes = [ctypes.c_void_p] * 12 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
     lib.mhap_format_m4.restype = ctypes.c_longlong
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.mhap_score_pair.argtypes = [
+        i32p, i32p, ctypes.c_int, ctypes.c_int,
+        i32p, i32p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_double,
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")]
+    lib.mhap_score_pair.restype = ctypes.c_int
     return lib
+
+
+def score_pair(s1, nk1, s2, nk2, k2=12, max_shift=0.2):
+    """Stage-2 overlap info of one sketch pair by the C++ port
+    (native/scorer.h).  s1, s2: [m, 2] (hash, pos) rows.  Returns
+    (score, raw, a1, a2, b1, b2), zeros when the pair has no overlap --
+    the tuple mhap_tpu.oracle.scorer.get_overlap_info returns."""
+    out = np.zeros(6, np.float64)
+    ok = _lib().mhap_score_pair(
+        np.ascontiguousarray(s1[:, 0], np.int32),
+        np.ascontiguousarray(s1[:, 1], np.int32), len(s1), nk1,
+        np.ascontiguousarray(s2[:, 0], np.int32),
+        np.ascontiguousarray(s2[:, 1], np.int32), len(s2), nk2,
+        k2, max_shift, out)
+    if not ok:
+        return (0.0, 0.0, 0, 0, 0, 0)
+    return (out[0], out[1], int(out[2]), int(out[3]), int(out[4]),
+            int(out[5]))
 
 
 def format_m4(qid, cid, err, raw, qrc, a1, a2, ql, crc, b1, b2, cl):

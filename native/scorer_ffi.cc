@@ -4,8 +4,8 @@
 // This is the independently written implementation of the
 // BottomOverlapSketch merge automaton (ported from the Java sources, not
 // from the Python oracle); fuzzing it pair-by-pair against
-// mhap_tpu/oracle/scorer.py targets exactly the semantics VERDICT.md
-// round-1 flagged as single-sourced: duplicate-run cursor extension,
+// mhap_tpu/oracle/scorer.py targets exactly the semantics that were once
+// single-sourced: duplicate-run cursor extension,
 // shift-window advances, optimizeShifts dedup, and UMVU rounding.
 
 #include "scorer.h"

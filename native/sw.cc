@@ -1,5 +1,5 @@
 // Local Smith-Waterman alignment with affine gaps (Gotoh), plus traceback
-// identity statistics.  TPU-native rebuild of the reference's single native
+// identity statistics.  Rebuild of the reference's single native
 // component: the SSW striped Smith-Waterman C library loaded via JNI in
 // EstimateROC (reference main/EstimateROC.java:294-313, :789).
 //

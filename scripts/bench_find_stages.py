@@ -1,4 +1,4 @@
-"""Microbenchmark vote + scoring sub-stages on the real TPU."""
+"""Microbenchmark vote + scoring sub-stages on the GPU."""
 import sys
 import time
 

@@ -1,4 +1,4 @@
-"""Microbenchmark the fast-scorer sub-stages on the real TPU.
+"""Microbenchmark the fast-scorer sub-stages on the GPU.
 
 Times each piece of make_score_pairs_fast's per-lane program at pipeline
 batch shape (pair lanes x 2S master width) to attribute the score stage's

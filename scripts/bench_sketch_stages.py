@@ -1,4 +1,4 @@
-"""Microbenchmark the sketch pipeline sub-stages on the real TPU."""
+"""Microbenchmark the sketch pipeline sub-stages on the GPU."""
 import sys
 import time
 

@@ -11,7 +11,7 @@ per band, H = 512) on the real chip:
   cummax    one [H, M] u32 cummax (channel-path unit cost)
 
 Every measured program reduces its outputs to ONE i32 checksum inside the
-jit (NOTES.md: only pulled results measure truly; single-output consumption
+jit (only pulled results measure truly; single-output consumption
 DCEs the rest).
 """
 import sys

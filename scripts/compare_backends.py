@@ -1,7 +1,6 @@
-"""Single-chip vs D=1-sharded backend comparison on the real chip
-(VERDICT r2 item 9: quantify the sharded path's overhead -- two
-all_to_alls + psum-gather scoring -- on hardware, even without
-multi-chip access).
+"""Single-device vs D=1-sharded backend comparison on the GPU
+(quantifies the sharded path's overhead -- two all_to_alls +
+psum-gather scoring -- on hardware, even without several cards).
 
 Emits ONE JSON line:
   {"device_reads_per_s", "sharded_d1_reads_per_s", "overhead_x",
@@ -55,9 +54,9 @@ def run_config(name, reads, settles=2, reps=3):
 
 
 def main():
-    # --scale40k: the reference-scale comparison (VERDICT r4 item 4:
-    # the 1.98x overhead statement was a 1024-read toy measurement;
-    # at 40k the sharded backend must ride the same wide path)
+    # --scale40k: the reference-scale comparison (at 40k the sharded
+    # backend rides the same wide path; a 1024-read run measures
+    # overheads only)
     if "--scale40k" in sys.argv:
         reads, _, _ = B.make_reads_placed(40_000, seed=B.SEED + 3)
         print(json.dumps(run_config("scale40k", reads, settles=1, reps=3)),

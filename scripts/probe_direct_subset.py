@@ -1,15 +1,12 @@
-"""On-chip A/B probe of the family-subset direct vote (round-5 lead 1).
+"""GPU A/B probe of the family-subset direct vote.
 
-The repeat40k artifact (REPEAT40K_r05.json) showed the dense direct
-fallback vote is the regime's dominant wall (~300-400s of the ~800s
-run).  This probe times the SAME repeat recipe at a reduced read count
-(full repeat40k needs ~2.5h of warm+steady on this chip -- out of a
-session's budget), runs the direct stage with the subset restriction
-OFF then ON in one process, and asserts line-set sha256 equality
-between the two -- an at-scale exactness witness on real data on top of
-the CPU differential tests (tests/test_joinvote.py).
+Times the repeat40k recipe at a reduced read count, runs the direct
+stage with the subset restriction OFF then ON in one process, and
+asserts line-set sha256 equality between the two -- an at-scale
+exactness witness on real data on top of the CPU differential tests
+(tests/test_joinvote.py).
 
-Usage: python scripts/probe_direct_subset.py [n_reads] > DIRECTVOTE_r05.json
+Usage: python scripts/probe_direct_subset.py [n_reads] > direct_subset.json
 """
 
 import hashlib

@@ -1,12 +1,11 @@
-"""Decompose the repeat regime's direct-fallback stage on chip.
+"""Decompose the repeat regime's direct-fallback stage on the GPU.
 
-DIRECTVOTE_r05.json established the dense vote is ~1s of the ~120s
-direct stage at repeat-16k; this probe instruments (by wrapping, no
-pipeline changes) where the rest goes: _score_wide wall inside the
-direct stage, the escalation rungs (_rescore_fast / _rescore_slow),
-flagged-lane counts, host-oracle pair count, and the format step.
+Instruments (by wrapping, no pipeline changes) where the direct stage's
+time goes: _score_wide wall inside the direct stage, the exact-automaton
+rung (_rescore_slow), flagged-lane counts, host-oracle pair count, and
+the format step.
 
-Usage: python scripts/probe_repeat_stage.py [n_reads] > REPEATSTAGE_r05.json
+Usage: python scripts/probe_repeat_stage.py [n_reads] > repeat_stage.json
 """
 
 import json
@@ -47,12 +46,10 @@ def main():
 
         st = {"in_direct": False, "direct_s": 0.0, "score_direct_s": 0.0,
               "score_direct_calls": 0, "score_main_s": 0.0,
-              "fast_s": 0.0, "fast_lanes": 0,
               "slow_s": 0.0, "slow_lanes": 0}
 
         orig_direct = ov._find_matches_direct
         orig_score = ov._score_wide
-        orig_fast = ov._rescore_fast
         orig_slow = ov._rescore_slow
 
         def w_direct(*a, **k):
@@ -76,14 +73,6 @@ def main():
                 else:
                     st["score_main_s"] += dt
 
-        def w_fast(qs, cs, q_rows, c_rows):
-            t0 = time.perf_counter()
-            try:
-                return orig_fast(qs, cs, q_rows, c_rows)
-            finally:
-                st["fast_s"] += time.perf_counter() - t0
-                st["fast_lanes"] += len(q_rows)
-
         def w_slow(qs, cs, q_rows, c_rows):
             t0 = time.perf_counter()
             try:
@@ -94,7 +83,6 @@ def main():
 
         ov._find_matches_direct = w_direct
         ov._score_wide = w_score
-        ov._rescore_fast = w_fast
         ov._rescore_slow = w_slow
 
         t0 = time.perf_counter()
@@ -115,8 +103,6 @@ def main():
                "direct_score_s": round(st["score_direct_s"], 2),
                "direct_score_calls": st["score_direct_calls"],
                "main_score_s": round(st["score_main_s"], 2),
-               "rescore_fast_s": round(st["fast_s"], 2),
-               "rescore_fast_lanes": st["fast_lanes"],
                "rescore_slow_s": round(st["slow_s"], 2),
                "rescore_slow_lanes": st["slow_lanes"],
                "host_oracle_pairs": ov.slow_pair_count - sp0}

@@ -1,4 +1,4 @@
-"""Stage-level profiler for the single-chip pipeline (run on TPU).
+"""Stage-level profiler for the single-device pipeline (run on the GPU).
 
 Profiles the PRODUCTION path: device-resident sketching, then the fused
 vote->suppress->compact dispatch feeding device-resident pairs to the

@@ -1,4 +1,4 @@
-"""Fine-grained stage profile of the wide-store 40k path (run on TPU)."""
+"""Fine-grained stage profile of the wide-store 40k path (run on the GPU)."""
 import sys, time
 import numpy as np
 sys.path.insert(0, __file__.rsplit("/", 2)[0])

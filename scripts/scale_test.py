@@ -2,12 +2,12 @@
 8-device virtual CPU mesh, line-set-compared against the independently
 written native CPU implementation (native/mhap_cpu.cc).
 
-This is the VERDICT.md round-2 deliverable: the band-sharded postings
-design at a read count past anything a dense all-pairs vote could touch,
-with per-device memory O(N/D + N*H/D + chunk).
+It runs the band-sharded postings design at a read count past anything a
+dense all-pairs vote could touch, with per-device memory
+O(N/D + N*H/D + chunk).
 
 Usage:  python scripts/scale_test.py [n_reads] [--skip-native]
-Writes SCALE_r02.json at the repo root.
+Prints the result as one JSON line.
 """
 import json
 import os
@@ -119,8 +119,6 @@ def main():
             print("only-native:", list(sn - sl)[:3])
             print("only-sharded:", list(sl - sn)[:3])
 
-    with open(os.path.join(ROOT, "SCALE_r02.json"), "w") as f:
-        json.dump(result, f, indent=1)
     print(json.dumps(result))
 
 

@@ -1,4 +1,4 @@
-"""Device-resident tf-idf/legacy filtered sketching (VERDICT r4 item 1).
+"""Device-resident tf-idf/legacy filtered sketching.
 
 The filtered sketch flow must produce BIT-IDENTICAL sketch stores to the
 host float64 weighting flow (_sketch_entries_host), across weight modes,

@@ -83,7 +83,7 @@ def test_direct_subset_matches_full_vote_unit():
     """direct_vote_subset over candidate_member_mask's rows must return
     the same pairs AND the same stats (hit mass, distinct) as the
     full-store direct_vote -- the exactness claim of the family-subset
-    restriction (NOTES.md repeat-regime gap analysis)."""
+    restriction."""
     import jax.numpy as jnp
 
     from mhap_tpu.index import joinvote as JV

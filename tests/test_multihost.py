@@ -1,7 +1,7 @@
 """Multi-host execution: two jax.distributed processes (TCP localhost),
 4 virtual CPU devices each, forming one 8-device mesh; the sharded
 overlapper must produce the same M4 line set as a single process
-(VERDICT.md round-2 item 7; SURVEY.md section 2.8 DCN mapping)."""
+(SURVEY.md section 2.8 DCN mapping)."""
 
 import os
 import socket

@@ -2,7 +2,7 @@
 reference sources, independent of the Python oracle) must produce the
 identical M4 line set.  Agreement of two independently derived
 implementations is the strongest available substitute for jar goldens
-(no JVM exists in this image); see VERDICT.md Missing #1 / Next #3.
+(no JVM is available to the tests).
 """
 
 import os
@@ -16,9 +16,9 @@ BIN = os.path.join(REPO, "native", "build", "mhap_cpu")
 
 
 def _ensure_binary():
-    if not os.path.exists(BIN):
-        subprocess.run(["make", "-C", os.path.join(REPO, "native")],
-                       check=True, capture_output=True)
+    from mhap_tpu.utils.native import build
+
+    build()
     return BIN
 
 

@@ -3,50 +3,21 @@ C++ port vs the run-grouped brute-force witness (tests/witness_brute.py).
 
 All three were written from sketch/BottomOverlapSketch.java separately
 and with different structure (flat-cursor automaton / flat-cursor C++ /
-run-grouped merge).  VERDICT r2 item 5: a common-mode misreading of the
-Java would have to occur three times independently to pass this suite.
+run-grouped merge): a common-mode misreading of the Java would have to
+occur three times independently to pass this suite.
 """
-
-import ctypes
-import os
-import subprocess
 
 import numpy as np
 import pytest
 
 from witness_brute import brute_overlap_info
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIB = os.path.join(REPO, "native", "build", "libmhapnative.so")
-
 
 @pytest.fixture(scope="module")
 def cpp_score():
-    if not os.path.exists(LIB):
-        subprocess.run(["make", "-C", os.path.join(REPO, "native")],
-                       check=True, capture_output=True)
-    lib = ctypes.CDLL(LIB)
-    fn = lib.mhap_score_pair
-    fn.restype = ctypes.c_int
-    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    fn.argtypes = [i32p, i32p, ctypes.c_int, ctypes.c_int,
-                   i32p, i32p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_double,
-                   np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")]
+    from mhap_tpu.utils.native import score_pair
 
-    def call(s1, nk1, s2, nk2, k2=12, max_shift=0.2):
-        out = np.zeros(6, np.float64)
-        ok = fn(np.ascontiguousarray(s1[:, 0], np.int32),
-                np.ascontiguousarray(s1[:, 1], np.int32), len(s1), nk1,
-                np.ascontiguousarray(s2[:, 0], np.int32),
-                np.ascontiguousarray(s2[:, 1], np.int32), len(s2), nk2,
-                k2, max_shift, out)
-        if not ok:
-            return (0.0, 0.0, 0, 0, 0, 0)
-        return (out[0], out[1], int(out[2]), int(out[3]), int(out[4]),
-                int(out[5]))
-
-    return call
+    return score_pair
 
 
 def _mk_sketch(rng, n, nk, alphabet, pos_max=None):

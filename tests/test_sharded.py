@@ -36,7 +36,7 @@ def test_mesh_shape_invariance(small_reads):
 
 
 def test_sharded_midsize_capacity_parity():
-    """VERDICT r2 item 4: a mid-size sharded run (600 reads, ~17x
+    """A mid-size sharded run (600 reads, ~17x
     coverage) that actually reaches the capacity/escalation machinery
     (bucket pushes, vote ladder, pair compaction) which 10-read units
     cannot -- line-set equality vs the oracle on an 8-device mesh."""

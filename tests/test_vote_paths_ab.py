@@ -1,4 +1,4 @@
-"""A/B parity between the vote span-expansion paths (VERDICT r3 item 8).
+"""A/B parity between the vote span-expansion paths.
 
 The channel path (packed-cummax, N < 2^16, span <= 32) and the request
 sort-join fallback of index/postings._vote_core are asserted IDENTICAL
